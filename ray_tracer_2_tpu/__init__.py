@@ -1,10 +1,11 @@
-"""ray_tracer_2_tpu — a TPU-native progressive path-tracing framework.
+"""ray_tracer_2_tpu — a progressive path-tracing framework in JAX.
 
 A ground-up rebuild of the capabilities of ``addiswebb/ray_tracer_2`` (a Rust +
-WGSL real-time GPU path tracer) designed for TPU hardware: scenes are pure
-functional SoA pytrees, the render step is a single ``jit``-compiled JAX/Pallas
-program, multi-chip scaling uses ``jax.sharding`` pixel-tile sharding, and the
-host runtime (assets, BVH build, viewer) runs in Python/C++ off the device path.
+WGSL real-time GPU path tracer): scenes are pure functional SoA pytrees, the
+render step is a single ``jit``-compiled JAX/Pallas program, multi-device
+scaling uses ``jax.sharding`` pixel-tile sharding, and the host runtime
+(assets, BVH build, viewer) runs in Python/C++ off the device path. It runs
+on an NVIDIA GPU; the package name is historical.
 
 Layer map (mirrors SURVEY.md §1 of the reference):
   kernels/   device compute: intersection, traversal, shading (ref: shaders/ray_tracer.wgsl)

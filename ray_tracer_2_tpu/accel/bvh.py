@@ -9,7 +9,7 @@ arrays instead of the reference's per-triangle sweep of <=50 candidate planes
 per axis (bvh.rs:323-347): O(n) per node, no per-triangle Python loops, and
 equivalent tree quality.
 
-One deliberate extension for TPU traversal: leaves are force-split down to
+One deliberate extension for vectorized traversal: leaves are force-split down to
 ``max_leaf`` triangles (default 4) so the traversal kernel can intersect a
 whole leaf as one fixed-width vector chunk. The reference's SIMT kernel loops
 ``node.count`` times per leaf (ray_tracer.wgsl:308-314); lockstep vector lanes
@@ -28,7 +28,7 @@ import time
 import numpy as np
 
 MAX_DEPTH = 32          # bvh.rs:141
-DEFAULT_MAX_LEAF = 4    # TPU traversal chunk width
+DEFAULT_MAX_LEAF = 4    # traversal chunk width
 N_BINS = 32             # binned-SAH resolution (ref uses <=50 swept planes)
 
 

@@ -1,6 +1,7 @@
 """ctypes loader for the native C++ BVH builder.
 
-Compiled on first use with g++ (cached as a .so next to the source); any
+Compiled on first use with g++ (utils/native_build.py: a .so next to the
+source, keyed by source, flags and host); any
 failure falls back to the pure-numpy builder silently. The reference's
 equivalent component is the rayon-parallel Rust builder (bvh.rs:152-207).
 """
@@ -8,31 +9,22 @@ from __future__ import annotations
 
 import ctypes
 import logging
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
+from ray_tracer_2_tpu.utils.native_build import build_shared_lib
+
 log = logging.getLogger(__name__)
 
 _DIR = Path(__file__).resolve().parent
 _SRC = _DIR / "bvh_builder.cpp"
-_SO = _DIR / "_bvh_builder.so"
+_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+          "-pthread"]
 _lock = threading.Lock()
 _lib = None
 _tried = False
-
-
-def _compile() -> bool:
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-pthread", str(_SRC), "-o", str(_SO)]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return True
-    except Exception as e:
-        log.warning("native BVH builder compile failed (%s); using numpy", e)
-        return False
 
 
 def get_lib():
@@ -42,11 +34,11 @@ def get_lib():
         if _tried:
             return _lib
         _tried = True
-        if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-            if not _compile():
-                return None
+        so = build_shared_lib(_SRC, _FLAGS)
+        if so is None:
+            return None
         try:
-            lib = ctypes.CDLL(str(_SO))
+            lib = ctypes.CDLL(str(so))
         except OSError as e:
             log.warning("native BVH builder load failed (%s)", e)
             return None

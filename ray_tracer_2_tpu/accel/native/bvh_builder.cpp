@@ -1,4 +1,4 @@
-// Native SAH BVH builder — the TPU-framework equivalent of the reference's
+// Native SAH BVH builder — this framework's equivalent of the reference's
 // rayon-parallel Rust builder (src/core/bvh.rs). Exposed to Python over a
 // plain C ABI (ctypes); semantics identical to accel/bvh.py:
 //   * binned SAH (32 bins) over the centroid extent of each axis,

@@ -1,8 +1,7 @@
 """Packed per-octant node rows — one gather per traversal step.
 
-TPU random gathers are latency-bound per ROW, and a row of up to 128 lanes
-costs the same as one float (the hardware fetches a full tile either way).
-So the traversal's entire working set for one step is packed into a single
+Dependent random gathers are latency-bound per ROW, and a row of up to 128
+floats costs about what one float does. So the traversal's entire working set for one step is packed into a single
 128-float row per (octant, node), and — crucially — an internal node's row
 holds its CHILDREN's AABBs, so subtrees whose box misses are pruned without
 ever fetching them (the currency is gathered rows, not tests):

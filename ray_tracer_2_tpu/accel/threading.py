@@ -1,7 +1,7 @@
 """Octant-ordered skip-link ("threaded") BVH layout.
 
 The reference traverses with a per-thread stack, pushing the near child last
-so it pops first (ray_tracer.wgsl:323-331). Lockstep TPU lanes pay dearly for
+so it pops first (ray_tracer.wgsl:323-331). Lockstep vector lanes pay dearly for
 per-ray stacks (a (B, depth) array plus a scatter per push). Instead we
 precompute, for each of the 8 ray-direction octants, a *threading* of the
 tree: every node stores

@@ -1,15 +1,14 @@
 """COMPACT 32-ary (wide) BVH rows — one CANONICAL table, contiguous children.
 
-Round-2 traversal redesign (docs/PERF_NOTES.md "Round-2 measurement
-campaign"): XLA dependent gathers are throughput-bound per ROW, so FETCH
-COUNT is the only lever — and tables under the gather engine's ~8 MB
-cliff run 2.3x faster, so ONE canonical table beats 8 octant-ordered
-copies. Replayed on the real dragon BVH, a 16-ary collapse with a
-per-lane (base, hitmask) resume stack needs ~11 row fetches per segment
-vs 29-34 for the binary skip-link scheme (scripts/sim_wide.py), and a
-32-ary collapse cuts that to ~9 (scripts/sim_wide256.py) — but 32 f32
-AABBs don't fit a 512-byte row, and bigger rows gather slower
-(scripts/probe_rowwidth.py: 256-f32 rows cost 1.19x per fetch).
+Traversal is a chain of dependent row gathers, so FETCH COUNT is the
+lever, and one canonical table stays smaller (more cache-resident) than
+8 octant-ordered copies. Replayed on the real dragon BVH, a 16-ary
+collapse with a per-lane (base, hitmask) resume stack needs ~11 row
+fetches per segment vs 29-34 for the binary skip-link scheme
+(scripts/sim_wide.py), and a 32-ary collapse cuts that to ~9
+(scripts/sim_wide256.py) — but 32 f32 AABBs don't fit a 512-byte row.
+The row width was chosen before the H100 port and is queued for an H100
+A/B (ROADMAP D3).
 
 So child AABBs are stored as CONSERVATIVELY-ROUNDED float16 pairs packed
 into f32 columns: 32 children x 6 bounds = 192 f16 = 96 f32 columns, and
@@ -21,9 +20,7 @@ a true hit); the measured visit inflation on the dragon is < 1%
 The column order is COMPONENT-BLOCKED, not per-child: all 32 min_x values
 first, then min_y, min_z (and the max in each column's high 16 bits).
 This turns the kernel's slab test into ~15 WIDE (B, 32) vector ops
-instead of 32 narrow (B, 3) slices that each waste 125 of 128 VPU lanes
-— measured 194 vs 245-304 us/step for the per-child loop, i.e. the
-compact row is free only in blocked form (scripts/probe_unpack.py).
+instead of 32 narrow (B, 3) slices.
 
 Layout (one f32[128] row per node):
 
@@ -32,12 +29,11 @@ Layout (one f32[128] row per node):
     13      k: child count (<= 32)
     16..112 children AABBs: 96 f32 cols; col 16 + 32*axis + c packs child
             c's (min[axis] in the LOW 16 bits, max[axis] in the HIGH 16
-            bits) as f16. The kernel unpacks with integer shifts/masks +
-            one exponent-fix multiply (no f16 dtype ops, no lane
-            relayout); bounds are pre-clamped away from the f16 denormal
-            range so denormal-flush on the unpack path cannot shrink a
-            box. Empty slots hold inverted boxes and are excluded by the
-            c < k gate
+            bits) as f16. The kernel unpacks with integer shifts/masks
+            and a native f16 -> f32 conversion; bounds are also
+            pre-clamped away from the f16 denormal range, so no
+            denormal-flushing path can shrink a box. Empty slots hold
+            inverted boxes and are excluded by the c < k gate
   leaf row  (COL_COUNT > 0): identical to accel/packed.py leaf rows
     (COL_FIRST/COL_MATS/COL_CULLS/COL_TRIS) so the megakernel's leaf
     intersection code is shared between both traversals. Leaf triangle
@@ -73,9 +69,7 @@ MAX_ARITY = 32
 # diverges from accel/packed.py's AoS leaf rows, which the binary
 # debug/tiled path keeps): the megakernel's 8-triangle Möller–Trumbore
 # runs as ~45 wide (B, 8) vector ops instead of 8 sequential passes of
-# narrow (B, 3) slices — the leaf test was the only step cost NOT hidden
-# under the row-gather latency (scripts/ablate_step.py: gather 82 us,
-# +slabs 82, +leaf 103). Edges and the geometric normal are precomputed
+# narrow (B, 3) slices. Edges and the geometric normal are precomputed
 # at pack time with the same f32 arithmetic the kernel used, so results
 # are unchanged.
 #
@@ -106,10 +100,9 @@ def _round_out_f16(lo: np.ndarray, hi: np.ndarray):
     -inf, hi toward +inf, so boxes only grow (pruning stays exact).
 
     Denormal f16 results are pushed outward to the nearest of {0, ±2^-14}:
-    the kernel's integer unpack multiplies a reconstructed f32 denormal by
-    2^112, and a denormal-flushing VPU would snap that toward zero — which
-    for a NEGATIVE min (or positive max) would SHRINK the box. Clamping at
-    pack time keeps every stored bound exactly representable post-unpack."""
+    a denormal-flushing decode would snap them toward zero — which for a
+    NEGATIVE min (or positive max) would SHRINK the box. Clamping at pack
+    time keeps every stored bound a normal number."""
     lo16 = lo.astype(np.float16)
     over = lo16.astype(np.float32) > lo
     lo16 = np.where(over, np.nextafter(lo16, np.float16(-np.inf)), lo16)
@@ -203,10 +196,10 @@ def pack_wide_rows(bvh: BVH, v0, v1, v2, tri_mat, tri_cull,
                    row_offset: int, tri_offset: int):
     """Build the CANONICAL (R, 128) wide row table for one group BVH.
 
-    One table, not eight octant copies: the v5e gather engine runs ~2.3x
-    faster from tables under its ~8-16 MB cliff (measured, PERF_NOTES
-    round-2 addendum), which beats any near-first gain from per-octant
-    child ordering. Near-first entry is preserved anyway: the kernel picks
+    One table, not eight octant copies: a smaller table stays
+    cache-resident, which was measured (before the H100 port) to beat any
+    near-first gain from per-octant child ordering. Near-first entry is
+    preserved anyway: the kernel picks
     the MINIMUM-DISTANCE hit child per ray at each wide node; only resume
     order is positional, and resumed children are fetched either way (the
     fetch count is order-invariant for the mask-stack scheme).
@@ -304,11 +297,10 @@ def pack_sphere_wide_rows(bvh: BVH, pos, radius, row_offset: int):
     sphere ids so the kernel can fetch centre/material for the winner.
 
     The reference has no sphere acceleration at all — its kernel loops every
-    sphere per ray (ray_tracer.wgsl:357-364). MEASURED and kept as a KNOB
-    only (render_scene.SPHERE_BVH_MIN, RT2_SPHERE_BVH): on random_balls
-    (485 spheres) the BVH phase runs 23.3 Mrays/s vs 27.3 dense — the
-    ungated boundary makes extra traversal iterations cost more than the
-    dense (B, S) cross (docs/PERF_NOTES.md round-3). NOT bit-equal to the
+    sphere per ray (ray_tracer.wgsl:357-364). Kept as a KNOB only
+    (render_scene.SPHERE_BVH_MIN, RT2_SPHERE_BVH): before the H100 port
+    it lost to the dense (B, S) cross on random_balls; queued for an H100
+    A/B (ROADMAP D2). NOT bit-equal to the
     dense path: the blocked (B, 8) quadratic and the dense (B, S) quadratic
     compile to different FMA/re-association, and grazing hits (huge ground
     sphere, disc near 0) amplify the ulp differences — ~0.6% of

@@ -23,7 +23,7 @@ from ray_tracer_2_tpu.scene.material import MaterialFlag, MaterialRecord
 from ray_tracer_2_tpu.assets import obj as objmod
 from ray_tracer_2_tpu.assets.textures import load_image_rgba
 
-#: Default search paths; RT2_TPU_ASSETS env var prepends one.
+#: Default search paths; RT2_ASSETS env var prepends one.
 DEFAULT_ASSET_DIRS = [
     Path(__file__).resolve().parents[2] / "assets",
     Path("/root/reference/assets"),
@@ -37,7 +37,7 @@ class AssetNotFound(FileNotFoundError):
 class AssetManager:
     def __init__(self, search_dirs: list[os.PathLike] | None = None):
         dirs = [Path(d) for d in (search_dirs or [])]
-        env = os.environ.get("RT2_TPU_ASSETS")
+        env = os.environ.get("RT2_ASSETS")
         if env:
             dirs.insert(0, Path(env))
         dirs += DEFAULT_ASSET_DIRS

@@ -1,8 +1,8 @@
 """Texture loading + device atlas.
 
 The reference binds a dense 64-slot ``binding_array`` of textures with a
-repeat/linear sampler (ray_tracer.rs:139-205). TPUs have no texture units, so
-textures live in one flat texel buffer with per-slot (offset, height, width)
+repeat/linear sampler (ray_tracer.rs:139-205). XLA has no texture-unit path,
+so textures live in one flat texel buffer with per-slot (offset, height, width)
 tables, and the kernel does its own wrap addressing + bilinear filtering
 (kernels/texture.py). Images are flipped horizontally at load — a reference
 behavior scenes depend on (asset.rs:77).
@@ -16,12 +16,22 @@ import numpy as np
 from ray_tracer_2_tpu.config import MAX_TEXTURES
 
 
+def _pil_image():
+    """PIL's Image module, imported on first use: decoding texture files
+    and resizing them are the only host steps that need Pillow."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("decoding or resizing texture images needs the "
+                          "Pillow package (PIL), which is not installed"
+                          ) from e
+    return Image
+
+
 def load_image_rgba(path) -> np.ndarray:
     """Decode to (H, W, 4) float32 in [0,1], flipped horizontally
     (asset.rs:77)."""
-    from PIL import Image
-
-    with Image.open(path) as im:
+    with _pil_image().open(path) as im:
         im = im.convert("RGBA")
         arr = np.asarray(im, dtype=np.float32) / 255.0
     return arr[:, ::-1, :].copy()  # horizontal flip
@@ -69,11 +79,10 @@ def downsample_images_to_budget(images: list, budget_texels: int) -> list:
     (area-preserving ratio, PIL BOX filter = exact area average; output
     stays on the u8/255 grid).
 
-    Why: dependent texel-row gathers degrade ~1.5x past a ~10-20 MB table
-    (round-3 size sweep) and keep degrading — sponza's 168 MB quad atlas is
-    why its quad layout measured a wash (docs/PERF_NOTES.md round-4 texture
-    campaign). A 1-2M texel budget (16-32 MB quad rows) holds the atlas near
-    the cliff knee. The reference samples full-resolution textures in-kernel
+    Why: dependent texel-row gathers slow down once the table outgrows the
+    caches (sponza's quad atlas is 168 MB); a 1-2M texel budget (16-32 MB
+    quad rows) keeps it small. The budget was chosen before the H100 port
+    and is queued for an H100 A/B (ROADMAP R7). The reference samples full-resolution textures in-kernel
     (ray_tracer.wgsl:455-459), so this is OFF by default and scenes keep the
     exact path unless RT2_TEX_BUDGET_MB is set (render_scene._tex_budget).
     Images at-or-under budget pass through untouched."""
@@ -81,7 +90,7 @@ def downsample_images_to_budget(images: list, budget_texels: int) -> list:
                 for im in images if im is not None)
     if total <= budget_texels:
         return images
-    from PIL import Image
+    Image = _pil_image()
 
     r = (budget_texels / total) ** 0.5
     out = []
@@ -126,11 +135,9 @@ def pack_texels_u8_pairs(texels: np.ndarray, offsets: np.ndarray,
 
     A bilinear tap needs (x0, y0) (x0, y1) (x1, y0) (x1, y1); with the y
     pair baked into the row, the 4 per-tap gathers of the flat layout
-    become 2 (the dominant sponza boundary cost: 4 x ~25 us/boundary,
-    docs/PERF_NOTES.md round-3). Storage doubles — each texel also appears
-    as the y-neighbor of the row above — which is cheap next to halving
-    the gather count (both layouts sit past the ~8 MB gather cliff on
-    sponza). Values are the identical u8 words, so sampling is bit-equal
+    become 2. Storage doubles — each texel also appears as the y-neighbor
+    of the row above — which is cheap next to halving the gather count.
+    Values are the identical u8 words, so sampling is bit-equal
     to the flat layout's."""
     x = texels.shape[0]
     u8 = _quantize_u8(texels)
@@ -162,11 +169,8 @@ def pack_texels_u8_quads(texels: np.ndarray, offsets: np.ndarray,
       col  96 + t & 31   word ((x+1) %% w, (y+1) %% h)
 
     One row gather yields ALL FOUR bilinear corners — the tap count drops
-    from the pair layout's 2 to 1 (row-gather issue cost is the dominant
-    textured-boundary term: 2 x ~25 us/iteration on sponza,
-    docs/PERF_NOTES.md round-4). Storage doubles again vs pairs (4 words
-    per texel); both layouts sit past the gather-rate cliff, so bytes are
-    free and rows are the currency. Values are the identical u8 words and
+    from the pair layout's 2 to 1. Storage doubles again vs pairs (4 words
+    per texel); rows, not bytes, are the currency. Values are the identical u8 words and
     the sampler uses the identical blend expressions, so sampling stays
     bit-equal to the flat and paired layouts."""
     x = texels.shape[0]
@@ -198,10 +202,7 @@ def pack_texels_u8(texels: np.ndarray) -> np.ndarray:
     A<<24 (values quantized to u8 — lossless for PNG-decoded textures,
     which arrive as u8/255, and reference-faithful for procedural ones:
     the reference uploads Rgba8 textures, asset.rs:77). 512-byte rows
-    gather ~1.8x faster than the 16-byte (X, 4) layout, which both sat
-    far above the ~8 MB gather cliff (168 MB for sponza) and straddled
-    gather granules (scripts/probe_texels.py: 1129 -> 624 us per 4-tap
-    bilinear at B=16k)."""
+    gather fewer granules than the 16-byte (X, 4) layout."""
     x = texels.shape[0]
     u8 = _quantize_u8(texels)
     words = (u8[:, 0] | (u8[:, 1] << 8) | (u8[:, 2] << 16)

@@ -14,7 +14,7 @@ import enum
 # Internal framebuffer (engine.rs:202): 1920x1080 RGBA float32.
 RENDER_SIZE = (1920, 1080)
 
-# Capacities (ray_tracer.rs:15-19). On TPU these are padding targets for SoA
+# Capacities (ray_tracer.rs:15-19). Here these are padding targets for SoA
 # arrays, not hard buffer limits — scenes re-jit if they outgrow a bucket.
 MAX_TEXTURES = 64
 

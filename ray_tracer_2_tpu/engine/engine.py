@@ -110,7 +110,7 @@ class Engine:
 
         Dispatch is ASYNC by default: the call returns as soon as the frame
         is enqueued, so host work (input, streaming, the next frame's params)
-        overlaps device compute — the TPU analog of the reference's separate
+        overlaps device compute — the analog of the reference's separate
         UI/render threads (README.md:5). ``sync=True`` blocks for exact
         per-frame timing.
         """

@@ -1,11 +1,9 @@
 """Brute-force broadcast intersection for small instance groups.
 
-Pointer-chasing is the enemy on TPU (gathers are ~0.08 G rows/s in-loop);
-for instance groups below ~1k triangles it is far cheaper to stream EVERY
-triangle against EVERY ray — a (B, T) broadcast with zero gathers that runs
-at full VPU rate. The reference does the analogous thing for spheres (linear
-loop per ray, ray_tracer.wgsl:357-364); we extend it to small meshes, where
-it beats our own BVH traversal by ~an order of magnitude.
+For small instance groups it is cheaper to stream EVERY triangle against
+EVERY ray — a (B, T) broadcast with no dependent gathers — than to chase
+BVH pointers. The reference does the analogous thing for spheres (linear
+loop per ray, ray_tracer.wgsl:357-364); we extend it to small meshes.
 
 Cornell Box (32 tris), the quad-built Room scenes, and the area lights all
 take this path; big meshes (dragon, sponza) use kernels/traverse.py.
@@ -19,18 +17,15 @@ from ray_tracer_2_tpu.kernels.intersect import INF, ray_triangle
 from ray_tracer_2_tpu.scene.render_scene import RenderScene
 
 #: instance groups at or below this triangle count stream (dense cross)
-#: instead of traversing their wide BVH. Measured on displaced-grid scenes
-#: at 1080p (scripts/probe_pallas_caps.py, round 4): brute 38.6/33.3/27.3
-#: Mrays/s at 128/192/256 tris vs the wide-BVH path's flat ~25.5, then
-#: 18.4 vs 25.5 at 384 and collapsing beyond (9.7 at 512, 5.4 at 1024) —
-#: the old 1024 threshold left 2.6-4.6x on the table for 384-1024-tri
-#: instances. Images are bit-equal across the switch (verified).
+#: instead of traversing their wide BVH. Images are bit-equal across the
+#: switch. The crossover was chosen before the H100 port and is queued for
+#: an H100 A/B (ROADMAP D2).
 BRUTE_MAX_TRIS = 256
 
 
 def brute_max() -> int:
     """The brute-vs-BVH instance threshold; RT2_BRUTE_MAX_TRIS overrides
-    for on-chip crossover A/Bs (callers must clear jit caches after a flip
+    for crossover A/Bs on the card (callers must clear jit caches after a flip
     — the threshold shapes the traced program but is not a jit key)."""
     import os
     return int(os.environ.get("RT2_BRUTE_MAX_TRIS", BRUTE_MAX_TRIS))
@@ -44,14 +39,7 @@ def brute_force_intersect(scene: RenderScene, origin, direction,
 
     Returns the same record dict as traverse_bvh_packed (stats count every
     streamed triangle as tested).
-
-    With RT2_PALLAS_BRUTE=1 the streaming runs as a Pallas kernel with the
-    triangle table resident in VMEM (kernels/pallas_brute.py).
     """
-    from ray_tracer_2_tpu.kernels import pallas_brute
-
-    if pallas_brute.available():
-        return _brute_pallas(scene, origin, direction, tri_offset, tri_count)
     B = origin.shape[0]
     best = dict(
         dst=jnp.full((B,), INF),
@@ -72,11 +60,10 @@ def brute_force_intersect(scene: RenderScene, origin, direction,
         hit, dst, u, v, det = ray_triangle(o, d, v0, v1, v2, cull)
         k = jnp.argmin(dst, axis=1)
         # winner extraction via one-hot select + sum (exact: one nonzero
-        # term), NOT take_along_axis — a per-lane scalar gather lowers to
-        # ~177 us PER PICK at B=16k (profiled on sponza; half its frame
-        # was four of these), while the (B, T) one-hot ops are plain
-        # vector arithmetic. Same pattern as the sphere prepass
-        # (megakernel.py segment_prepass).
+        # term), NOT take_along_axis — chosen before the H100 port, where a
+        # per-lane scalar gather was far slower than the (B, T) one-hot
+        # arithmetic; queued for an H100 A/B (ROADMAP S5). Same pattern as
+        # the sphere prepass (megakernel.py segment_prepass).
         is_win = jnp.arange(v0.shape[1], dtype=jnp.int32)[None, :] \
             == k[:, None]
         dstk = jnp.sum(jnp.where(is_win, dst, 0.0), axis=1)
@@ -97,37 +84,3 @@ def brute_force_intersect(scene: RenderScene, origin, direction,
         )
     stats = jnp.zeros((B, 2), jnp.int32).at[:, 1].set(tri_count)
     return dict(**best, stats=stats)
-
-
-def _brute_pallas(scene: RenderScene, origin, direction,
-                  tri_offset: int, tri_count: int):
-    from ray_tracer_2_tpu.kernels.pallas_brute import (
-        RAY_BLOCK, TRI_CHUNK, pallas_brute_intersect,
-    )
-
-    B = origin.shape[0]
-    sl = slice(tri_offset, tri_offset + tri_count)
-    cull = (jnp.take(scene.materials.flag, scene.tri_mat[sl]) != 1
-            ).astype(jnp.float32)
-    tris = jnp.concatenate([
-        scene.tri_v0[sl], scene.tri_v1[sl], scene.tri_v2[sl],
-        scene.tri_mat[sl].astype(jnp.float32)[:, None], cull[:, None],
-        jnp.zeros((tri_count, 5), jnp.float32)], axis=1)
-    pad_t = -(-tri_count // TRI_CHUNK) * TRI_CHUNK
-    tris = jnp.pad(tris, ((0, pad_t - tri_count), (0, 0)))
-
-    rays = jnp.concatenate([origin, direction, jnp.zeros((B, 2))], axis=1)
-    pad_b = -(-B // RAY_BLOCK) * RAY_BLOCK
-    rays = jnp.pad(rays, ((0, pad_b - B), (0, 0)))
-
-    out = pallas_brute_intersect(rays, tris, tri_count)[:B]
-    dst = out[:, 0]
-    got = dst < INF
-    stats = jnp.zeros((B, 2), jnp.int32).at[:, 1].set(tri_count)
-    return dict(
-        dst=dst,
-        tri=jnp.where(got, tri_offset + out[:, 5].astype(jnp.int32), -1),
-        u=out[:, 1], v=out[:, 2], det=out[:, 3],
-        mat=out[:, 4].astype(jnp.int32),
-        stats=stats,
-    )

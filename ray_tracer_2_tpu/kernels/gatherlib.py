@@ -1,11 +1,10 @@
-"""Row-fetch strategies tuned to measured TPU behavior.
+"""Row-fetch strategies.
 
-Measured on v5e: XLA dynamic gathers inside device loops are latency-bound at
-~0.08 G rows/s regardless of batch size or row width (a wide row costs the
-same as one float — hence accel/packed.py), while a one-hot matmul through
-the MXU fetches rows from SMALL tables several times faster and with exact
-integer round-trips under ``Precision.HIGHEST`` (bf16x3 decomposition is an
-exact f32 split; products against exact 0/1 stay exact).
+Rows of SMALL tables are fetched by a one-hot matmul, larger ones by a
+gather. The one-hot fetch is exact under ``Precision.HIGHEST`` (products
+against exact 0/1 stay exact). The split was chosen before the H100 port,
+where dependent gathers inside device loops were latency-bound; it is
+queued for an H100 A/B against ``jnp.take`` (ROADMAP S5).
 
 ``fetch_rows`` picks the strategy statically from the table size.
 """
@@ -14,7 +13,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-#: tables up to this many rows use the MXU one-hot path
+#: tables up to this many rows use the one-hot matmul path
 ONEHOT_MAX_ROWS = 2048
 
 
@@ -40,10 +39,8 @@ def fetch_attr(table: jax.Array, idx: jax.Array) -> jax.Array:
     table (4 triangles per 128-col row, 32 cols each — accel/packed.py
     pack_attr_quads). Returns (B, 32).
 
-    Narrow rows gather badly: the (T, 20) layout measured 324 us/step vs
-    233 us for this packed fetch + two hierarchical halving selects
-    (scripts/probe_shade.py — per-child (B, 16/32) select chains and the
-    8-per-row variant both measured worse)."""
+    Narrow rows gather badly, so four triangles share one packed row and
+    two hierarchical halving selects pick the winner's quarter."""
     row = fetch_rows(table, jax.lax.shift_right_logical(idx, 2))
     g = idx & 3
     half = jnp.where((g >= 2)[:, None], row[:, 64:128], row[:, 0:64])

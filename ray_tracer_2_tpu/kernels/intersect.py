@@ -1,7 +1,7 @@
 """Ray–primitive intersection math (ref: ray_tracer.wgsl:223-351).
 
 Every function is batched over rays (leading axis B) and written branch-free:
-TPU vector lanes execute in lockstep, so "no hit" is a masked lane, not a
+vector lanes execute in lockstep, so "no hit" is a masked lane, not a
 branch. Distances use the reference's INF sentinel (2^127) and epsilons so
 behavior matches the WGSL kernel decision-for-decision.
 """
@@ -57,8 +57,8 @@ def ray_sphere(origin, direction, centre, radius):
 
 def ray_sphere_fast(origin, direction, centre, radius, ck=None):
     """Dense (B, S) sphere cross with shared-term math — same decisions as
-    :func:`ray_sphere` (ray_tracer.wgsl:223-256) but restructured for the
-    VPU: no (B, S, 3) intermediates, no (B, S) divides.
+    :func:`ray_sphere` (ray_tracer.wgsl:223-256) but restructured for
+    vector units: no (B, S, 3) intermediates, no (B, S) divides.
 
     Identities (h = -oc·d is b/-2, disc4 = disc/4, sq2 = s/2):
       oc·d  = o·d - c_i·d          (two rank-1 broadcasts, 5 ops each)

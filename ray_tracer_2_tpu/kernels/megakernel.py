@@ -1,16 +1,15 @@
 """Flat single-loop path tracer for BVH scenes ("megakernel" state machine).
 
 The layered loop (bounce while → per-instance for → traversal while) makes
-every ray wait at every bounce for the slowest ray in the batch — measured
-~5-10× lockstep waste on the dragon scene, because most rays terminate after
-1-2 segments while a few trace deep paths. Here the whole path runs in ONE
-while_loop: each ray advances its own (segment, instance, node) state every
-iteration, and the expensive segment-boundary work (shading + RNG + sphere
-and brute-force prepass for the next segment) runs as a masked phase gated by
-``lax.cond`` every SHADE_EVERY iterations, so its cost is amortized while
-traversal — one compact 32-ary wide-row gather per step (accel/wide.py;
-~4x fewer dependent gathers than binary skip links) — stays the
-steady-state body.
+every ray wait at every bounce for the slowest ray in the batch — most rays
+terminate after 1-2 segments while a few trace deep paths. Here the whole
+path runs in ONE while_loop: each ray advances its own (segment, instance,
+node) state every iteration, and the expensive segment-boundary work
+(shading + RNG + sphere and brute-force prepass for the next segment) runs
+as a masked phase gated by ``lax.cond`` every SHADE_EVERY iterations, so
+its cost is amortized while traversal — one compact 32-ary wide-row
+gather per step (accel/wide.py; ~4x fewer dependent gathers than binary
+skip links) — stays the steady-state body.
 
 Two entry points share the same parts:
 
@@ -20,9 +19,8 @@ Two entry points share the same parts:
   the whole image as a work queue. When a lane finishes a pixel (all
   rays_per_pixel samples), it scatters the result into the framebuffer and
   claims the next pixel from a cursor, so lanes stay busy regardless of how
-  uneven per-pixel path lengths are — the TPU analog of GPU
-  persistent-threads megakernels, and the fix for lockstep waste across
-  tiles.
+  uneven per-pixel path lengths are — the persistent-threads megakernel
+  design, and the fix for lockstep waste across tiles.
 
 Ray phase encoding (int state):
   bounce == -2                lane idle, needs to claim a pixel (persistent)
@@ -56,8 +54,7 @@ SHADE_EVERY = 1   # boundary cadence for the GATED variants (shade_every>0);
                   # render_persistent defaults to 0 = UNGATED: the boundary
                   # runs inline every iteration, so XLA overlaps its
                   # dependent gathers with the traversal window's (the
-                  # lax.cond was a scheduling barrier: 8.37 -> 9.85 Mrays/s
-                  # on the dragon, measured)
+                  # lax.cond is a scheduling barrier)
 DONE = 1 << 20    # bounce sentinel for terminated rays
 IDLE = -2         # bounce sentinel for lanes awaiting a pixel claim
 
@@ -70,9 +67,8 @@ class ColState:
     Presents the same ``I[:, col]`` / ``I.at[:, col].set(v)`` interface as
     the packed (B, 16) array it replaces, but each column is its own
     while-loop carry: the packed form lowered every column write to a
-    chained (16384, 1) dynamic-update-slice on the full array (profiled at
-    ~34 ms per dragon frame, jit(render_frame)/while/body/scatter), while
-    separate carries update for free."""
+    chained (B, 1) dynamic-update-slice on the full array, while separate
+    carries update for free."""
 
     __slots__ = ("vals",)
 
@@ -139,6 +135,39 @@ jax.tree_util.register_pytree_node(
 I_SEED, I_BOUNCE, I_SEGS, I_CUR, I_PTR, I_TRI, I_MAT, I_STRI, I_SMAT, \
     I_FLAG, I_SN, I_ST, I_PIXEL, I_SAMPLE, I_SP, I_NEE = range(16)
 
+#: float32 products run at full precision: a GPU may otherwise run them in
+#: TF32 (~3 decimal digits), enough to move a hit point past the small
+#: offsets that keep a bounce from re-hitting its own surface
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _matvec(m, v):
+    """Batched (B, 3, 3) @ (B, 3) at full float32 precision."""
+    return jnp.einsum("bij,bj->bi", m, v, precision=HIGHEST)
+
+
+def f16_bits_to_f32(bits):
+    """f16 bit patterns (low 16 bits of a uint32) -> float32, exact for
+    every pattern, subnormals included (no detour through f32 denormals,
+    which a flush-to-zero backend would zero)."""
+    return jax.lax.bitcast_convert_type(bits.astype(jnp.uint16),
+                                        jnp.float16).astype(jnp.float32)
+
+
+def encode_log_ids(ids):
+    """Pixel ids (< 2^23) -> f32 bit patterns for the completion log's
+    payload row. Bit 30 keeps every pattern a NORMAL float: raw small ids
+    are f32 denormals, which a flush-to-zero backend zeroes inside fused
+    copies — and the id is the reassembly key."""
+    return jax.lax.bitcast_convert_type(ids | jnp.int32(0x40000000),
+                                        jnp.float32)
+
+
+def decode_log_ids(f):
+    """Inverse of :func:`encode_log_ids`."""
+    return jax.lax.bitcast_convert_type(f, jnp.int32) & jnp.int32(0x3FFFFFFF)
+
+
 def _bvh_instances(scene: RenderScene):
     return [i for i, (_, _, c) in enumerate(scene.inst_spans)
             if c > brute_max()]
@@ -194,12 +223,6 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
     else:
         nee_mode = 0
     SPH_SENT = 0x3FFFFFFF  # best-id sentinel: loses every (dst, id) lex tie
-    # Reduction-free tournament variants (RT2_NOREDUCE, kernels/tourney.py)
-    # were measured SLOWER on every scene (dragon 22.34 vs 22.94, balls
-    # 51.85 vs 55.28 — docs/PERF_NOTES.md round-3 on-chip session): XLA's
-    # select_reduce/iota_reduce fusions already fuse producer arithmetic
-    # into the reduce, so the tournaments only added select chains. Deleted
-    # per the pre-registered A/B decision rule; reduces below are final.
     D = int(scene.wide_depth) + 2  # resume-stack depth (static)
     w2m_all = scene.inst_world_to_model
     m2w_all = scene.inst_model_to_world
@@ -287,27 +310,12 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
                             jnp.broadcast_to(root_rows[j], (BP, 128)), out)
         return out
 
-    # f16 unpack via integer arithmetic: no f16 dtype ops, no lane
-    # relayout; the magic multiply rebiases the exponent (2^112 maps f16
-    # bias 15 onto f32 bias 127). f16 inf maps to a finite 2^143 — still
-    # larger than any scene bound, fine for slabs. Denormals are excluded
-    # at pack time (accel/wide.py _round_out_f16).
-    F16_MAGIC = jax.lax.bitcast_convert_type(
-        jnp.uint32(0x77800000), jnp.float32)
-
-    def f16_bits_to_f32(bits):
-        sign = (bits & 0x8000) << 16
-        mag = (bits & 0x7FFF) << 13
-        return jax.lax.bitcast_convert_type(
-            (sign | mag).astype(jnp.uint32), jnp.float32) * F16_MAGIC
-
     def unpack_child_aabbs(row):
         """(B, 128) f32 row -> ((B, 96) lo, (B, 96) hi) child bounds in the
         COMPONENT-BLOCKED order min_x*32 | min_y*32 | min_z*32 (maxes in
         the high halves) — see accel/wide.py. Blocked order lets the slab
         test run as ~15 wide (B, 32) vector ops instead of 32 narrow
-        (B, 3) slices that each waste 125/128 VPU lanes (measured 194 vs
-        245-304 us/step, scripts/probe_unpack.py)."""
+        (B, 3) slices."""
         cols = row[:, wd.COL_CHILD_AABB:wd.COL_CHILD_AABB + wd.N_AABB_COLS]
         u = jax.lax.bitcast_convert_type(cols, jnp.uint32)
         return f16_bits_to_f32(u & 0xFFFF), f16_bits_to_f32(u >> 16)
@@ -578,8 +586,8 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
             return F, M, W, I, S
         # On 1-phase scenes the advance fires most iterations AND the
         # lax.cond is a scheduling barrier (same effect as the boundary
-        # gate): inlining measured 9.85 -> 10.02 Mrays/s on the dragon.
-        # Multi-phase scenes keep the gate — it skips real work there.
+        # gate), so it is inlined. Multi-phase scenes keep the gate — it
+        # skips real work there.
         if n_phase <= 2:
             return _advance_impl(F, M, W, I, S)
         cur = I[:, I_CUR]
@@ -647,8 +655,7 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
         got = at_end_r & (I[:, I_TRI] >= 0)              # per-ray merge
         m2w = m2w_for(rep(ptr))
         local_hp = om + dm * M[:, 6:7]
-        world_hp = jnp.einsum("bij,bj->bi", m2w[:, :3, :3], local_hp) \
-            + m2w[:, :3, 3]
+        world_hp = _matvec(m2w[:, :3, :3], local_hp) + m2w[:, :3, 3]
         world_dst = jnp.sqrt(dot(world_hp - o, world_hp - o))
         better = got & (world_dst < W[:, 0])
         W = jnp.where(better[:, None], jnp.concatenate([
@@ -659,7 +666,7 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
                                           I[:, I_MAT] + delta_for(rep(ptr)),
                                           I[:, I_SMAT]))
         # static where-chain, not a take: a (B,)-indexed take is a per-lane
-        # scalar gather (~177 us at B=16k) even on a tiny table
+        # scalar gather even on a tiny table
         raw = jnp.full((B,), bvh_ids[0], jnp.int32)
         for j in range(1, n_bvh):
             raw = jnp.where(rep(ptr) == j, jnp.int32(bvh_ids[j]), raw)
@@ -675,15 +682,15 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
             entering_r = rep(entering)
             w2m = w2m_for(rep(new_ptr))
             d = F[:, 3:6]
-            om_n = jnp.einsum("bij,bj->bi", w2m[:, :3, :3], o) + w2m[:, :3, 3]
-            dm_n = normalize(jnp.einsum("bij,bj->bi", w2m[:, :3, :3], d))
+            om_n = _matvec(w2m[:, :3, :3], o) + w2m[:, :3, 3]
+            dm_n = normalize(_matvec(w2m[:, :3, :3], d))
             # Seed the pruning limit from the best WORLD hit so far (prepass
             # + earlier instances): same exact distance mapping + ulp slack
             # as start_segments. Cuts the second instance's traversal on
             # room2-class scenes wherever the first already found a closer
             # hit.
             m2w_n = m2w_for(rep(new_ptr))
-            wv_n = jnp.einsum("bij,bj->bi", m2w_n[:, :3, :3], dm_n)
+            wv_n = _matvec(m2w_n[:, :3, :3], dm_n)
             slack_e = 8e-6 * (1.0 + jnp.sqrt(dot(o, o)))
             limit_e = (W[:, 0] * (1.0 + 4e-6) + slack_e) \
                 / jnp.sqrt(dot(wv_n, wv_n))
@@ -706,11 +713,7 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
             I = I.at[:, I_SP].set(jnp.where(entering, sp_e, I[:, I_SP]))
             I = I.at[:, I_SN].add(rep(jnp.where(entering, k_e, 0)))
         # else: the tri entering block is logically dead on 1-instance
-        # scenes (new_ptr always reaches n_bvh). Keeping it once measured
-        # FASTER (dead ops overlapped gather latency, 8.25 vs 7.43);
-        # re-tested after the blocked leaf + ungated boundary freed the
-        # VPU: compiling it out wins — the schedule is VPU-contended, not
-        # latency-starved.
+        # scenes (new_ptr always reaches n_bvh), so it is compiled out.
         if sph:
             # lanes that just finished the LAST triangle instance enter the
             # sphere BVH (world space, seeded with the segment's best world
@@ -758,7 +761,7 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
         n_model = normalize(attr[:, 0:3] * w_bar[:, None]
                             + attr[:, 3:6] * u[:, None]
                             + attr[:, 6:9] * v[:, None]) * jnp.sign(det)[:, None]
-        n_world = normalize(jnp.einsum("bij,bj->bi", m2w[:, :3, :3], n_model))
+        n_world = normalize(_matvec(m2w[:, :3, :3], n_model))
         uv_mesh = (attr[:, 9:11] * w_bar[:, None] + attr[:, 11:13] * u[:, None]
                    + attr[:, 13:15] * v[:, None])
 
@@ -816,7 +819,7 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
             nt = texel[:, :3] * 2.0 - 1.0
             t_model = attr[:, 15:18]
             hand = attr[:, 18:19]
-            t_w = normalize(jnp.einsum("bij,bj->bi", m2w[:, :3, :3], t_model))
+            t_w = normalize(_matvec(m2w[:, :3, :3], t_model))
             t_w = normalize(t_w - normal * dot(t_w, normal, keepdims=True))
             b_w = jnp.cross(normal, t_w) * hand
             n_pert = normalize(t_w * nt[:, 0:1] + b_w * nt[:, 1:2]
@@ -872,7 +875,7 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
                 # most materials are textured (e.g. sponza): the any()
                 # gate would fire every boundary anyway, and the lax.cond
                 # is a scheduling barrier keeping the 4 bilinear taps off
-                # the overlapped gather schedule (4.86 -> 5.04 measured)
+                # the overlapped gather schedule
                 tex_color = sample_texture(scene, m["diffuse_index"], hit["uv"])
             else:
                 # textures are rare: skip the 4-tap gather entirely when
@@ -1256,7 +1259,7 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
             # rest.
             m2w0 = scene.inst_model_to_world[bvh_ids[0]]
             d_m0 = M_new[:, 3:6]
-            wv = d_m0 @ m2w0[:3, :3].T
+            wv = jnp.dot(d_m0, m2w0[:3, :3].T, precision=HIGHEST)
             # Slack: the merge recomputes world_dst = |m2w(om + t dm) - o|,
             # which carries the ADDITIVE round-trip error e = m2w(w2m(o))-o
             # (~ulps of |o| + translation, independent of W) on top of
@@ -1321,9 +1324,10 @@ def _make_parts(scene: RenderScene, B: int, bounces: int, skybox: bool,
 
 
 def _cumsum_i32(x):
-    """Inclusive int32 cumsum of a (B,) vector via two triangular matmuls on
-    the MXU — ~2x faster than jnp.cumsum at B=16k (88 vs 172 us measured).
-    Exact: counts < 2^24 in f32 HIGHEST. Falls back for non-128-multiples."""
+    """Inclusive int32 cumsum of a (B,) vector via two triangular matmuls.
+    Chosen before the H100 port, where it beat jnp.cumsum; queued for an
+    H100 A/B (ROADMAP S7). Exact: counts < 2^24 in f32 HIGHEST. Falls back
+    for non-128-multiples."""
     B = x.shape[0]
     if B % 128:
         return jnp.cumsum(x)
@@ -1430,7 +1434,6 @@ def render_persistent(scene: RenderScene, frames, *, width: int, height: int,
                       claim_shuffle: bool = True,
                       antialias: bool = False, nee: bool = False,
                       packet: int | None = None,
-                      fused_boundary: bool | None = None,
                       return_iters: bool = False,
                       return_log_order: bool = False):
     """Persistent-lanes whole-image render. Returns ((rows, width, 4) image,
@@ -1458,29 +1461,23 @@ def render_persistent(scene: RenderScene, frames, *, width: int, height: int,
     whose traversal steps are interleaved inside one loop body: cohort
     c+1's row gather has no data dependency on cohort c's, so XLA can
     issue it while cohort c's slab/leaf arithmetic runs — breaking the
-    5-deep dependent-gather chain that stalls the single-batch schedule
-    (profiled ~2x below the op-sum, docs/PERF_NOTES.md). Pixel values are
+    5-deep dependent-gather chain that stalls the single-batch schedule.
+    Pixel values are
     unchanged (the work queue hands out the same pixel ids; seeds derive
     from pixel ids). Queue claim + ungated boundary only."""
-    # measured-on-chip defaults (ray_tracer_2_tpu/tuning.py): explicit kwarg
-    # > tuned.json for the active backend > built-in fallback. Resolution is
+    # defaults measured on the card (ray_tracer_2_tpu/tuning.py): explicit
+    # kwarg > tuned.json for the active backend > built-in fallback (the
+    # values last tuned before the H100 port; backends tuned.json does not
+    # list, such as the CPU in tests, use them). Resolution is
     # per-process-stable, so the jit cache (keyed on the static values the
     # callers pass through) never sees a knob change under a live trace.
-    # Scene-class tuning profile: the lane-count optimum shifts when the
-    # texel atlas is big enough to evict the hot tables from VMEM residency
-    # and push the gathers HBM-side (sponza: lanes=24576 beats 16384 by
-    # ~3% under the quad atlas; texture_test with its 8 MB atlas LOSES 25%
-    # at 24576 — so the key is atlas SIZE, not texturedness; round-4 sweep)
+    # Scene-class tuning profile "bigtex": a big texel atlas can move the
+    # lane-count optimum (tuned.json "<backend>:bigtex").
     assert not (return_log_order and claim == "striped"), \
         "return_log_order is a queue-claim probe hook (striped has no log)"
     assert not (return_log_order and return_iters), \
         "return_log_order and return_iters are mutually exclusive"
-    if scene.tex_texels.shape[0] >= 65536:
-        profile = "bigtex"
-    else:
-        from ray_tracer_2_tpu.kernels.pallas_boundary import (
-            scene_profile_eligible)
-        profile = "fused" if scene_profile_eligible(scene) else None
+    profile = "bigtex" if scene.tex_texels.shape[0] >= 65536 else None
     lanes = tuning.resolve("lanes", lanes, 16384, profile=profile)
     unroll = tuning.resolve("unroll", unroll, 5, profile=profile)
     packet = tuning.resolve("packet", packet, 1, profile=profile)
@@ -1507,11 +1504,6 @@ def render_persistent(scene: RenderScene, frames, *, width: int, height: int,
         assert claim == "queue" and shade_every == 0 and cohorts == 1, \
             "packet>1 supports the default queue claim + ungated boundary"
         claim_shuffle = False
-    # (the compacted-traversal-window knob — ``trav_lanes`` — was measured
-    # on chip and DELETED: the per-iteration argsort + state gather/scatter
-    # round-trip cost far more than the narrowed window saved on every
-    # bench scene: dragon 17.8 best vs 23.1 baseline, sponza 6.6 vs 16.6,
-    # room2 14.8 vs 15.1 — docs/PERF_NOTES.md round-4)
     parts = _make_parts(scene, B, bounces, skybox, normal_maps, nee=nee,
                         packet=packet)
     BP = B // packet
@@ -1546,7 +1538,8 @@ def render_persistent(scene: RenderScene, frames, *, width: int, height: int,
             (uv[:, 1] - 0.5) * scene.view_params[1],
             jnp.full((B,), scene.view_params[2]),
         ], axis=1)
-        fp = local_focus @ cam[:3, :3].T + cam[:3, 3]
+        fp = jnp.dot(local_focus, cam[:3, :3].T, precision=HIGHEST) \
+            + cam[:3, 3]
         if antialias:
             # box-filter sub-pixel jitter (RenderParams.antialias); draw
             # order matches trace.py sample_once exactly
@@ -1576,13 +1569,13 @@ def render_persistent(scene: RenderScene, frames, *, width: int, height: int,
     I0 = I0.at[:, I_SAMPLE].set(jnp.full((B,), rpp - 1, jnp.int32))  # first boundary claims a pixel
     A0 = jnp.zeros((B, 4))                # per-pixel sample accumulator
     S0 = (jnp.zeros((BP, parts["stack_depth"]), jnp.int32),) * 3
-    # Completion LOG instead of a scatter target: the TPU scatter engine
-    # runs at ~47 ns/row (measured — slower than gathers), so out.at[p].add
-    # per boundary cost ~0.2 s/frame on the dragon. Completed pixels are
-    # instead compacted to the front (stable argsort of the done mask) and
-    # appended densely with dynamic_update_slice; every pixel completes
-    # exactly once, so log[:total] is a permutation of the frame and one
-    # argsort+take at the end reassembles it (~17 ms vs ~200 ms).
+    # Completion LOG instead of a scatter target (chosen before the H100
+    # port, whose scatter was slower than its gathers; queued for an H100
+    # A/B, ROADMAP S6). Completed pixels are compacted to the front (stable
+    # argsort of the done mask) and appended densely with
+    # dynamic_update_slice; every pixel completes exactly once, so
+    # log[:total] is a permutation of the frame and one sort at the end
+    # reassembles it.
     striped = claim == "striped"
     # largest multiplier with overflow-free u32 products that is coprime
     # to total (bijectivity of idx*A mod total); 1 = identity (no shuffle)
@@ -1592,10 +1585,10 @@ def render_persistent(scene: RenderScene, frames, *, width: int, height: int,
     if not claim_shuffle:
         claim_mul = 1
     if log_cap is None:
-        # default cap: ~half the lanes complete per boundary in the worst
-        # measured case (dragon ~7k/16k); 8192 halves the compaction take
-        # + log DUS width with deferral engaging only on rare bursts
-        # (dragon 18.9 -> 19.4, sponza 7.43 -> 7.64 Mrays/s)
+        # default cap: about half the lanes complete per boundary in the
+        # worst case seen; 8192 halves the compaction take + log DUS width
+        # with deferral engaging only on rare bursts (chosen before the
+        # H100 port; queued for the H100 knob sweep, ROADMAP S3)
         log_cap = 8192
     log_cap = min(log_cap, B)
     K = -(-total // B)
@@ -1606,49 +1599,14 @@ def render_persistent(scene: RenderScene, frames, *, width: int, height: int,
         logp0 = jnp.zeros((1,), jnp.int32)
     else:
         # one (5, total+B) payload buffer: rgba in rows 0:4, the PIXEL ID
-        # bitcast into row 4. A separate s32[16384] id gather profiled at
-        # 116 us/iteration (scalar gathers pay full gather-row granularity
-        # per element) vs ~26 us for a wide row gather — carrying the id
-        # inside the payload makes compaction one take + one DUS. The
-        # buffer is TRANSPOSED (pixels on the MINOR axis): a (total+B, 5)
-        # layout pads its 5-wide minor dim to the 128-lane tile, so the
-        # per-iteration append paid a 25x-padded dynamic_update_slice
-        # (profiled 28 us/iter; lane-contiguous it vanishes into the
-        # boundary fusion).
+        # bitcast into row 4 — carrying the id inside the payload makes
+        # compaction one take + one DUS instead of a separate id gather.
+        # The buffer is TRANSPOSED (pixels on the MINOR axis) so the
+        # per-iteration append is contiguous.
         logv0 = jnp.zeros((5, total + B), jnp.float32)
         logp0 = jnp.zeros((1,), jnp.int32)
     lane_ids = jnp.arange(B, dtype=jnp.int32)
     k_cols = jnp.arange(K, dtype=jnp.int32)[None, :, None]
-
-    # ---- fused Mosaic boundary (kernels/pallas_boundary.py): the whole
-    # resolve/claim/camera/prepass/root-entry phase as ONE kernel, leaving
-    # only the attr/material gathers and the log machinery in XLA. Routing:
-    # explicit kwarg > RT2_FUSED_BOUNDARY env > tuned.json knob; always
-    # gated on the static eligibility class (headline scene shape).
-    fused_fn = None
-    if claim == "queue" and shade_every == 0 and cohorts == 1:
-        want = fused_boundary
-        if want is None:
-            import os as _os2
-            env = _os2.environ.get("RT2_FUSED_BOUNDARY")
-            want = (env == "1") if env in ("0", "1") else \
-                bool(tuning.resolve("fused_boundary", None, 0,
-                                    profile=profile))
-        if want:
-            from ray_tracer_2_tpu.kernels import pallas_boundary as _pb
-            if _pb.eligible(scene, n_bvh=n_bvh, sph=parts["sph"],
-                            nee_mode=parts["nee_mode"], packet=packet,
-                            cohorts=cohorts, claim=claim,
-                            shade_every=shade_every,
-                            normal_maps=normal_maps, B=B):
-                fused_fn = _pb.make_fused_boundary(
-                    scene, B, bounces=bounces, rpp=rpp, skybox=skybox,
-                    antialias=antialias, width=width, height=height,
-                    row_start=row_start, frames=frames, total=total,
-                    log_cap=log_cap, claim_mul=claim_mul,
-                    stack_cols=jnp.arange(parts["stack_depth"],
-                                          dtype=jnp.int32)[None, :],
-                    interpret=jax.default_backend() != "tpu")
 
     def boundary(F, M, W, I, S, A, logv, logp, cursor, wcursor):
         at_b = _rep(I[:, I_PTR] >= n_phase) & (I[:, I_BOUNCE] != DONE)
@@ -1706,27 +1664,17 @@ def render_persistent(scene: RenderScene, frames, *, width: int, height: int,
         else:
             # pixel complete → append to the completion log (owned pixels
             # only). Compaction = stable argsort of the done mask +
-            # gathers; the rank-scatter alternative (small-buffer scatter)
-            # microbenched faster in isolation but measured 8% SLOWER in
-            # the full frame.
+            # gathers.
             perm = jnp.argsort(jnp.logical_not(valid_px), stable=True)
-            # bit 30 keeps the bitcast pattern a NORMAL float: raw small
-            # ids are f32 denormals, which the TPU flushes to zero inside
-            # fused copies — that scrambled whole renders (pixel order is
-            # the reassembly key). ids < 2^23 leave the mantissa intact.
             payload = jnp.concatenate(
                 [(A / jnp.float32(rpp)).T,
-                 jax.lax.bitcast_convert_type(
-                     I[:, I_PIXEL] | jnp.int32(0x40000000),
-                     jnp.float32)[None, :]], axis=0)
+                 encode_log_ids(I[:, I_PIXEL])[None, :]], axis=0)
             pay_c = jnp.take(payload, perm[:log_cap], axis=1)
             logv = jax.lax.dynamic_update_slice(logv, pay_c, (0, wcursor))
             wcursor = jnp.minimum(
                 wcursor + jnp.sum(valid_px.astype(jnp.int32)), total)
 
-            # claim new pixels from the cursor. (An argsort-inverse rank
-            # replacing this cumsum measured 194 vs 180 ms/frame on the
-            # dragon — the MXU cumsum overlaps the schedule better.)
+            # claim new pixels from the cursor (rank = exclusive cumsum)
             claiming = pixel_done
             rank = _cumsum_i32(claiming.astype(jnp.int32)) \
                 - claiming.astype(jnp.int32)
@@ -1813,13 +1761,10 @@ def render_persistent(scene: RenderScene, frames, *, width: int, height: int,
         it, cohs, logv, logp, cursor, wcursor = state
         cohs = list(cohs)
         if has_trav:
-            # fixed unrolled window: an adaptive (while_loop) window that
-            # exits when most lanes finish their segment measured WORSE on
-            # chip (4.66 vs 5.16 Mrays/s) - the un-unrollable inner loop
-            # pays per-step loop overhead that exceeds the ~30% idle-slot
-            # savings it recovers. Cohorts interleave per STEP (A1 B1 A2
-            # B2 ...) so each cohort's next gather overlaps the others'
-            # arithmetic.
+            # fixed unrolled window (an adaptive while_loop window cannot
+            # be unrolled and pays per-step loop overhead). Cohorts
+            # interleave per STEP (A1 B1 A2 B2 ...) so each cohort's next
+            # gather overlaps the others' arithmetic.
             for _ in range(unroll):
                 for c in range(cohorts):
                     F, M, W, I, S, A = cohs[c]
@@ -1850,13 +1795,12 @@ def render_persistent(scene: RenderScene, frames, *, width: int, height: int,
                 # resolve it and claim again. On scenes where most segments
                 # skip traversal (dragon: ~87%) this multiplies pixel
                 # throughput per iteration without adding traversal windows.
-                bfn = fused_fn if fused_fn is not None else boundary
                 for _ in range(boundaries):
                     for c in range(cohorts):
                         F, M, W, I, S, A = cohs[c]
                         F, M, W, I, S, A, logv, logp, cursor, wcursor = \
-                            bfn(F, M, W, I, S, A, logv, logp, cursor,
-                                wcursor)
+                            boundary(F, M, W, I, S, A, logv, logp, cursor,
+                                     wcursor)
                         cohs[c] = (F, M, W, I, S, A)
             else:
                 F, M, W, I, S, A = cohs[0]
@@ -1891,12 +1835,10 @@ def render_persistent(scene: RenderScene, frames, *, width: int, height: int,
     else:
         # reassemble: log pixel ids (payload row 4) are a permutation of
         # [0, total)
-        pix = jax.lax.bitcast_convert_type(logv[4, :total], jnp.int32) \
-            & jnp.int32(0x3FFFFFFF)
+        pix = decode_log_ids(logv[4, :total])
         # ONE multi-operand sort carries the rgba payload with the pixel
-        # keys — argsort + a (4, total) take measured 2.6 + 9 ms/frame at
-        # 1080p (the take runs on the HBM-resident log at ~4.5 ns/row);
-        # keys are a permutation, so stability is irrelevant
+        # keys (no separate argsort + take); keys are a permutation, so
+        # stability is irrelevant
         _, r_s, g_s, b_s, a_s = jax.lax.sort(
             (pix, logv[0, :total], logv[1, :total], logv[2, :total],
              logv[3, :total]), num_keys=1)

@@ -1,21 +1,20 @@
 """In-kernel texture sampling.
 
-TPUs have no texture samplers — the reference's repeat-addressed bilinear
+XLA exposes no texture samplers — the reference's repeat-addressed bilinear
 ``textureSampleLevel`` (ray_tracer.rs:197-205, ray_tracer.wgsl:455) becomes
 explicit wrap addressing + a 4-tap gather from the texel atlas.
 
 The atlas default is u8 RGBA words packed as bilinear QUADS — texel plus
 its wrapped x/y/xy neighbors in one 512-byte row (32 texels/row,
 assets/textures.py pack_texels_u8_quads) — so a bilinear sample costs ONE
-row gather. The lineage, each step measured on chip (docs/PERF_NOTES.md):
-flat (X, 4) f32 -> flat u8 rows (4 gathers, 1129 -> 624 us/bilinear at
-B=16k) -> (y, y+1) PAIR rows (2 gathers, sponza +8%) -> quads (1 gather,
-texture_test +25%; on sponza's 168 MB atlas the doubled table eats the
-win, -2% — pairs kept under RT2_TEX_LAYOUT=pairs). The per-lane column
+row gather. The lineage, each step measured before the H100 port: flat
+(X, 4) f32 -> flat u8 rows (4 gathers) -> (y, y+1) PAIR rows (2 gathers)
+-> quads (1 gather; pairs kept under RT2_TEX_LAYOUT=pairs, queued for an
+H100 A/B). The per-lane column
 extract is a one-hot multiply + lane reduction done on exact 16-bit
 halves (u32 payloads don't fit f32), and the u8 unpack is integer shifts
 — both ride under the gather latency. Texel rows are fetched with a raw
-take, NEVER the one-hot MXU fast path: the bitcast payloads can view as
+take, NEVER the one-hot matmul fast path: the bitcast payloads can view as
 signaling NaNs, which a matmul quietizes (blue-bit-6 corruption).
 """
 from __future__ import annotations
@@ -24,7 +23,7 @@ import jax
 import jax.numpy as jnp
 
 def _texel_rows(texels, row_idx):
-    """Texel-row fetch: ALWAYS a gather, never the one-hot MXU fast path.
+    """Texel-row fetch: ALWAYS a gather, never the one-hot matmul path.
     Texel rows are bitcast u8-packed u32 payloads whose f32 views can be
     signaling NaNs (any opaque texel with blue >= 128); the one-hot matmul
     QUIETIZES them (x*1.0 flips the mantissa MSB), silently corrupting the

@@ -1,6 +1,6 @@
 """Path-trace kernel: camera rays → collision → shading → radiance.
 
-This is the TPU re-design of the reference megakernel
+This is the vectorized re-design of the reference megakernel
 (shaders/ray_tracer.wgsl). One call traces a flat batch of pixels; the engine
 tiles the framebuffer into batches and ``shard_map`` tiles batches across
 chips. Everything is branch-free masked vector code over SoA arrays; the only
@@ -39,6 +39,8 @@ SUN_FOCUS = jnp.float32(500.0)
 
 GLASS = 1
 TEXTURE = 2
+#: full float32 products (a GPU may otherwise run them in TF32)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def environment_light(direction):
@@ -55,7 +57,7 @@ def environment_light(direction):
 
 def _mat4_apply(m, v, w):
     """Apply a (4,4) matrix to (B,3) points (w=1) or vectors (w=0)."""
-    out = v @ m[:3, :3].T
+    out = jnp.dot(v, m[:3, :3].T, precision=HIGHEST)
     return out + m[:3, 3] if w else out
 
 
@@ -148,7 +150,8 @@ def compute_hit(scene: RenderScene, origin, direction, inv_dir):
         n_model = normalize(attr[:, 0:3] * w_bar[:, None]
                             + attr[:, 3:6] * m_u[:, None]
                             + attr[:, 6:9] * m_v[:, None]) * jnp.sign(det)[:, None]
-        n_world = normalize(jnp.einsum("bij,bj->bi", m2w_sel[:, :3, :3], n_model))
+        n_world = normalize(jnp.einsum("bij,bj->bi", m2w_sel[:, :3, :3],
+                                       n_model, precision=HIGHEST))
         m_uv = (attr[:, 9:11] * w_bar[:, None] + attr[:, 11:13] * m_u[:, None]
                 + attr[:, 13:15] * m_v[:, None])
 
@@ -166,8 +169,8 @@ def compute_hit(scene: RenderScene, origin, direction, inv_dir):
 
 def _gather_material(scene: RenderScene, mat_id):
     """One packed-row fetch resolves every material field for shading
-    (layout: render_scene._pack_material_rows; MXU one-hot for the usual
-    small tables)."""
+    (layout: render_scene._pack_material_rows; one-hot matmul for the
+    usual small tables)."""
     row = fetch_rows(scene.mat_rows, mat_id)  # (B, 32)
     return dict(
         color=row[:, 0:4], emission_color=row[:, 4:8],
@@ -195,8 +198,7 @@ def trace_batch(scene: RenderScene, origin, direction, seed, *,
     Mrays/s accounting."""
     B = origin.shape[0]
     direction = normalize(direction)
-    # State fused into two packed carries + the bounce counter
-    # (docs/PERF_NOTES.md: every separate carry costs ~25 us/iteration):
+    # State fused into two packed carries + the bounce counter:
     #   F (B, 14) f32: origin3 | direction3 | transmittance4 | incoming4
     #   I (B, 4) i32: seed bits | alive | segments | pad
     F0 = jnp.concatenate([origin, direction, jnp.ones((B, 4)),
@@ -318,7 +320,8 @@ def camera_ray_basis(scene: RenderScene, x, y, width: int, height: int):
         jnp.full_like(uv[:, 0], scene.view_params[2]),
     ], axis=-1)
     m = scene.cam_to_world
-    focus_point = local_focus @ m[:3, :3].T + m[:3, 3]
+    focus_point = jnp.dot(local_focus, m[:3, :3].T, precision=HIGHEST) \
+        + m[:3, 3]
     cam_origin = m[:3, 3]
     cam_right = m[:3, 0]
     cam_up = m[:3, 1]

@@ -1,9 +1,8 @@
-"""Vectorized BVH traversal — the TPU re-design of ray_tracer.wgsl:292-335.
+"""Vectorized BVH traversal — a re-design of ray_tracer.wgsl:292-335.
 
-The reference walks the tree with one stack per SIMT thread. TPU lanes are
-not independent threads, so a whole **batch of rays walks in lockstep**, and
-per-ray stacks (a (B, depth) array plus scatters every push) are poison for
-the VPU. The default traversal is therefore **stackless**: the scene carries
+The reference walks the tree with one stack per SIMT thread. Here a whole
+**batch of rays walks in lockstep** as vector ops, and per-ray stacks (a
+(B, depth) array plus scatters every push) are poison for that. The default traversal is therefore **stackless**: the scene carries
 8 precomputed octant threadings (accel/threading.py) and each ray carries a
 single node index. One loop step = one node gather + one AABB slab test +
 either a fixed-width leaf chunk or a link follow. Near-first ordering (the

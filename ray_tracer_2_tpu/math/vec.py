@@ -12,10 +12,9 @@ import jax.numpy as jnp
 
 
 def dot(a, b, keepdims: bool = False):
-    # An unrolled elementwise variant (RT2_DOT_UNROLL) was measured on chip
-    # and deleted: no speedup (docs/PERF_NOTES.md round-3 on-chip session)
-    # and not bit-stable (FMA contraction inside elementwise fusions moved
-    # the balls golden RMSE 1.8e-3).
+    # An unrolled elementwise variant was deleted: not bit-stable (FMA
+    # contraction inside elementwise fusions moved the balls golden RMSE
+    # 1.8e-3).
     return jnp.sum(a * b, axis=-1, keepdims=keepdims)
 
 

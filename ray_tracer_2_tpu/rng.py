@@ -6,7 +6,7 @@ permutation. Reproducing the exact stream (seeded as
 ``pixel_index + abs(frames) * 719393``, ray_tracer.wgsl:475) lets fidelity
 tests compare our renders against a trusted scalar oracle draw-for-draw, and
 keeps every pixel's stream independent — the property that makes pixel-tile
-sharding across TPU chips collective-free.
+sharding across devices collective-free.
 
 All functions are shape-polymorphic: ``seed`` is a uint32 array of any shape,
 and every draw returns ``(value, new_seed)`` in functional style (JAX has no

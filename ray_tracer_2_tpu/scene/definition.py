@@ -20,7 +20,7 @@ from ray_tracer_2_tpu.scene.material import MaterialDefinition
 @dataclasses.dataclass
 class MeshData:
     """Triangle-soup mesh: de-indexed SoA arrays (mesh.rs:8-13 keeps Vertex
-    AoS; we split pos/normal/uv for TPU-friendly layout)."""
+    AoS; we split pos/normal/uv for a vector-friendly layout)."""
 
     positions: np.ndarray   # (V, 3) float32
     normals: np.ndarray     # (V, 3) float32

@@ -1,7 +1,7 @@
 """Materials: host-side builder API and the device SoA table.
 
 The reference stores one 112-byte ``MaterialUniform`` AoS struct inline in
-every sphere/mesh uniform (material.rs:3-36). On TPU, AoS inline structs are
+every sphere/mesh uniform (material.rs:3-36). For vectorized shading, AoS inline structs are
 the wrong layout: we keep one deduplicated table of materials as
 structure-of-arrays and give every sphere/triangle an ``int32`` material id,
 so shading gathers material fields lane-parallel.

@@ -3,8 +3,8 @@
 The reference uploads AoS GPU buffers (spheres / packed triangles / mesh
 uniforms / BVH nodes / texture array, ray_tracer.rs:164-195) every frame
 (ray_tracer.rs:397-419). Here the scene is one immutable SoA pytree shipped to
-the device **once per scene** (re-shipped only on edit), shaped for the VPU's
-(8,128) lanes:
+the device **once per scene** (re-shipped only on edit), shaped for wide
+vector ops:
 
   * triangles/nodes/materials/texels as flat structure-of-arrays;
   * per-triangle and per-sphere ``int32`` material ids into one deduplicated
@@ -41,12 +41,11 @@ log = logging.getLogger(__name__)
 LEAF_CHUNK = 8
 
 #: Sphere count above which the lit path traverses a sphere BVH instead of
-#: the dense every-sphere cross (kernels/megakernel.py). MEASURED on chip
-#: (round 3): random_balls (485 spheres) runs 27.3 Mrays/s dense vs 23.3
-#: with the BVH — the boundary phase is ungated (runs every traversal
-#: window), so the extra loop iterations the sphere phase adds per segment
-#: cost more than the removed (B, S) quadratic cross until S is in the
-#: thousands. Threshold is an extrapolation (no bench scene that large);
+#: the dense every-sphere cross (kernels/megakernel.py). Before the H100
+#: port the dense cross won on random_balls (485 spheres): the boundary
+#: phase is ungated, so the extra loop iterations the sphere phase adds
+#: per segment cost more than the removed (B, S) quadratic cross. The
+#: threshold is an extrapolation, queued for an H100 A/B (ROADMAP D2);
 #: RT2_SPHERE_BVH=1 forces it on (tests do, for coverage).
 SPHERE_BVH_MIN = 2048
 
@@ -65,7 +64,7 @@ def _tex_quads() -> bool:
     """Texel-atlas layout choice (RT2_TEX_LAYOUT=quads|pairs, default
     quads): quad rows carry all four bilinear corners so a sample costs ONE
     row gather; pairs carry (y, y+1) and cost two. Env-selectable for
-    on-chip A/Bs — read at scene-instantiation time only."""
+    A/Bs on the card — read at scene-instantiation time only."""
     import os
     return os.environ.get("RT2_TEX_LAYOUT", "quads") != "pairs"
 
@@ -76,8 +75,7 @@ def _tex_budget_mb() -> int:
     ray_tracer.wgsl:455-459). When set, oversized texture sets are
     downscaled at scene build to fit (assets/textures.py
     downsample_images_to_budget) — the lever for big-atlas scenes whose
-    dependent texel gathers sit past the ~10-20 MB degradation cliff
-    (sponza: 168 MB; docs/PERF_NOTES.md round-4 texture campaign). Read at
+    dependent texel gathers outgrow the caches (sponza: 168 MB). Read at
     scene-instantiation time only."""
     import os
     try:
@@ -225,10 +223,9 @@ class RenderScene:
 
     # Packed single-gather-per-step tables (accel/packed.py). The 8-octant
     # packed node rows that once lived here were dropped from the device
-    # pytree (VERDICT r2 weak #5): they served only the debug/tiled path,
-    # which now gathers the unpacked node/link arrays directly
-    # (kernels/traverse.py traverse_bvh) — sponza-scale traversal residency
-    # cut ~4x (the 8x octant copies dwarfed the wide table).
+    # pytree: they served only the debug/tiled path, which now gathers the
+    # unpacked node/link arrays directly (kernels/traverse.py
+    # traverse_bvh).
     tri_attr: jax.Array          # (ceil(T/4), 128) f32 quad-packed attr rows
                                  # (normals, uvs, tangent frame — accel/packed.py)
     mat_rows: jax.Array          # (K, 32) f32 — packed material records

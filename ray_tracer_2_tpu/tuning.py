@@ -1,18 +1,17 @@
-"""Measured-on-chip kernel tuning defaults.
+"""Kernel tuning defaults measured on the card.
 
 The persistent-lanes megakernel's ``lanes``/``unroll`` are pure scheduling
 knobs: per-pixel values derive from pixel ids, so every setting produces the
 bit-identical image (tests/test_persistent.py gates this).  The *fast*
-setting, however, is hardware-dependent — it moved twice during the round-2/3
-measurement campaigns (docs/PERF_NOTES.md).  ``scripts/sweep_r3.py`` measures
-the candidates on a real chip and ``scripts/apply_tuning.py`` persists the
-winner into ``tuned.json`` next to this file, so the defaults every caller
-gets (including the driver's ``bench.py`` run) are the measured optimum
-rather than whatever constant was last hand-edited into the kernel.
+setting, however, is hardware-dependent.  ``scripts/sweep_knobs.py``
+measures the candidates on the card and ``scripts/apply_tuning.py`` persists
+the winner into ``tuned.json`` next to this file, so the defaults every
+caller gets (including ``bench.py``) are the measured optimum rather than
+whatever constant was last hand-edited into the kernel.
 
 The reference has no analog — all its tuning lives in compile-time consts
-(ray_tracer.rs:15-19, bvh.rs:140-142).  This is the TPU-framework equivalent
-of an autotuning cache (persisted, validated, checked in).
+(ray_tracer.rs:15-19, bvh.rs:140-142).  This is an autotuning cache
+(persisted, validated, checked in).
 
 Rules:
   * explicit kwargs always win (``Renderer(lanes=...)``, ``bench --lanes``);
@@ -32,16 +31,13 @@ log = logging.getLogger(__name__)
 
 TUNED_PATH = Path(__file__).with_name("tuned.json")
 
-# knob -> (type, min, max). Bounds are sanity rails, not sweep ranges: a
-# lanes outside them either underfills the VPU or overflows sensible VMEM
-# carry budgets; an unroll outside them was never competitive (PERF_NOTES).
+# knob -> (type, min, max). Bounds are sanity rails, not sweep ranges.
 _SCHEMA = {
     "lanes": (int, 128, 262144),
     "unroll": (int, 1, 16),
     "boundaries": (int, 1, 8),
     "log_cap": (int, 128, 262144),
     "packet": (int, 1, 16),
-    "fused_boundary": (int, 0, 1),   # Mosaic boundary kernel (0 = XLA)
 }
 
 # knob -> extra predicate beyond the (type, lo, hi) rails. Keeps a malformed
@@ -49,9 +45,8 @@ _SCHEMA = {
 # but would trip a trace-time layout assert inside a kernel are rejected
 # here instead (e.g. the deleted trav_lanes knob required 128-multiples).
 _EXTRA_CHECKS: dict = {
-    # the MXU claim cumsum, the (R, 128) fused-boundary planes and the lane
-    # VPU tiling all want whole 128-lane groups; every measured config is a
-    # 128-multiple (kernels/megakernel.py, kernels/pallas_boundary.py)
+    # the claim-rank cumsum runs as (lanes / 128, 128) blocks
+    # (kernels/megakernel.py _cumsum_i32)
     "lanes": (lambda v: v % 128 == 0, "must be a multiple of 128"),
 }
 
@@ -108,12 +103,11 @@ def resolve(name: str, explicit, fallback, profile: str | None = None):
     """Explicit kwarg > tuned.json scene-class profile > tuned.json backend
     defaults > built-in fallback.
 
-    ``profile`` is a STATIC scene-class key (e.g. "textured"): some optima
-    shift with scene structure, not hardware — a big texel atlas evicts the
-    traversal tables from VMEM residency, moving the best lane count
-    (sponza: 24576 beats the global 16384 by ~5%, round-4 sweep). Profiles
-    live under "<backend>:<profile>" in tuned.json and override the plain
-    backend entry knob-by-knob."""
+    ``profile`` is a STATIC scene-class key (e.g. "bigtex"): some optima
+    shift with scene structure, not only hardware (a big texel atlas
+    competes with the traversal tables for cache). Profiles live under
+    "<backend>:<profile>" in tuned.json and override the plain backend
+    entry knob-by-knob."""
     if explicit is not None:
         return explicit
     if profile is not None:

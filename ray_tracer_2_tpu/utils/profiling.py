@@ -3,7 +3,7 @@
 The reference's instrumentation is host frame-time EMA (engine.rs:180-201),
 BVH build stats (bvh.rs:474-530), and per-pixel traversal counters rendered
 as heatmaps (debug modes 5-7). We keep all three (FrameTiming, BVHStats, and
-the stats channel in kernels/traverse.py) and add the TPU-native tooling:
+the stats channel in kernels/traverse.py) and add device-level tooling:
 ``jax.profiler`` traces for XLA-level kernel timing and device-memory stats.
 """
 from __future__ import annotations

@@ -2,7 +2,7 @@
 (ref: src/core/app.rs event loop, src/rendering/egui.rs panels).
 
 The reference couples rendering to a winit window and egui immediate-mode UI.
-On a headless TPU host the equivalent split is: the render loop runs in a
+On a headless GPU host the equivalent split is: the render loop runs in a
 Python thread (async device dispatch), and a stdlib HTTP server streams the
 framebuffer to a browser canvas while receiving input events back — the same
 UI/render separation the reference gets from its thread split (README.md:5).
@@ -545,5 +545,7 @@ def run_viewer(width: int = 960, height: int = 540,
 
 
 if __name__ == "__main__":
+    from ray_tracer_2_tpu.utils.compile_cache import enable_compile_cache
     logging.basicConfig(level=logging.INFO)
+    enable_compile_cache()
     run_viewer()

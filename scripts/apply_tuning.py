@@ -1,17 +1,18 @@
 #!/usr/bin/env python
 """Persist the fastest measured megakernel knobs into tuned.json.
 
-Reads a sweep log of JSON lines as written by scripts/sweep_r3.py
+Reads a sweep log of JSON lines as written by scripts/sweep_knobs.py
 (``{"scene": ..., "env": {...}, "kw": {...}, "mrays": N}``), compares the
 baseline config (empty env, no kw) of the anchor scene against its kw-only
 variants, and — when a variant wins by more than ``--margin`` (default 2%) —
 writes the winning knobs into ray_tracer_2_tpu/tuned.json for the active
-backend. Knob changes are image-invariant by construction (pixel values
-derive from pixel ids; tests/test_persistent.py gates every knob), so the
-update is safe to apply unattended from the on-chip runbook.
+backend (``--backend``, default the active JAX backend). Knob changes are
+image-invariant by construction (pixel values derive from pixel ids;
+tests/test_persistent.py gates every knob), so the update is safe to apply
+unattended.
 
-Usage: python scripts/apply_tuning.py [/tmp/sweep_r3.log] [--scene dragon]
-       [--margin 0.02] [--backend tpu] [--dry-run]
+Usage: python scripts/apply_tuning.py SWEEP_LOG [--scene sponza]
+       [--margin 0.02] [--backend gpu] [--dry-run]
 """
 from __future__ import annotations
 
@@ -56,14 +57,19 @@ def best_config(lines, scene):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("log", nargs="?", default="/tmp/sweep_r3.log")
-    ap.add_argument("--scene", default="dragon",
+    ap.add_argument("log")
+    ap.add_argument("--scene", default="sponza",
                     help="anchor scene (the headline bench config)")
     ap.add_argument("--margin", type=float, default=0.02,
                     help="required relative win over the baseline config")
-    ap.add_argument("--backend", default="tpu")
+    ap.add_argument("--backend", default=None,
+                    help="tuned.json entry to write (default: the active "
+                         "JAX backend)")
     ap.add_argument("--dry-run", action="store_true")
     args = ap.parse_args()
+    if args.backend is None:
+        import jax
+        args.backend = jax.default_backend()
 
     lines = Path(args.log).read_text().splitlines()
     baseline, kw, mrays = best_config(lines, args.scene)

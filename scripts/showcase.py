@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Showcase + convergence run on the TPU: renders every built-in scene to
+"""Showcase + convergence run on the accelerator: renders every built-in scene to
 renders/, measures time-to-1024spp on Cornell Box (BASELINE.md secondary
 metric) and a self-convergence RMSE curve."""
 import dataclasses

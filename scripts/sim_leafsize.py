@@ -6,13 +6,10 @@ This instead REBUILDS the binary BVH with max_leaf in {8, 16, 32} (the SAH
 stops splitting earlier), collapses 32-ary, and counts inner/leaf row fetches
 under the kernel's nearest-first mask-stack traversal.
 
-Row-width cost model (scripts/probe_rowwidth.py + round-3 re-probe): one
-table, uniform row width set by the leaf payload (12 comps x L + L matcull):
-  L=8  -> 128-col rows (512 B)  x1.00 per fetch
-  L=16 -> 256-col rows (1 KB)   x1.16
-  L=32 -> 512-col rows (2 KB)   x1.24
-Equivalent-fetch count = fetches x cost is the decision metric; tri_tests is
-the VPU-side cost (hidden under the serial gather issue at current rates).
+Row widths: L=8 -> 128-col rows (512 B), L=16 -> 256-col rows (1 KB),
+L=32 -> 512-col rows (2 KB). What a wider row costs per fetch on the H100
+is not measured yet, so the script reports fetch counts and the total
+BYTES fetched; tri_tests is the arithmetic side.
 """
 from __future__ import annotations
 
@@ -140,7 +137,8 @@ def main():
         dm /= np.linalg.norm(dm, axis=1, keepdims=True)
         return om, dm
 
-    for L, cost in ((8, 1.0), (16, 1.16), (32, 1.24)):
+    for L in (8, 16, 32):
+        row_bytes = 512 * L // 8   # one uniform table row
         bvh = build_bvh(v0, v1, v2, max_leaf=L)
         for tag, (oo, dd) in (("primary", (o, d)), ("bounce", (bo, bd))):
             om, dm = to_model(oo, dd)
@@ -149,7 +147,7 @@ def main():
             print(json.dumps(dict(
                 leaf=L, tag=tag,
                 mean=round(float(tot.mean()), 2),
-                eq512=round(float(tot.mean()) * cost, 2),
+                kib=round(float(tot.mean()) * row_bytes / 1024, 2),
                 inner=round(float(fi.mean()), 2),
                 leaves=round(float(fl.mean()), 2),
                 tri_tests=round(float(tt.mean()), 1),

@@ -8,8 +8,8 @@ Compares, per segment (primary + diffuse-bounce chunks):
            (fetches = only box-hit nodes; the extra loop carries this
            would cost are priced separately)
 
-Fetch count is the currency: XLA dependent gathers are throughput-bound at
-~0.124 G rows/s regardless of row width up to 512 B (docs/PERF_NOTES.md).
+Fetch count is the currency while traversal is bound by dependent row
+gathers whose cost barely depends on row width up to 512 B.
 """
 from __future__ import annotations
 

@@ -7,10 +7,10 @@ Variants (mask/resume-stack scheme, per-ray nearest-first):
            (union AABB in the parent slot)                   (256 f32 rows)
   w16m16   16-ary + merged leaves                            (256 f32 rows)
 
-Decision rule: on-chip probe (scripts/probe_rowwidth.py) says a 256-f32 row
-fetch costs ~1.19x a 128-f32 one (236 vs 199 us/step, dragon-size tables),
-so a 256-row variant wins iff fetches drop below ~0.84x.
-Reports inner/leaf split and the mean triangle tests per segment (VPU cost).
+Decision rule: a 256-row variant wins iff its fetch-count saving beats the
+measured per-fetch cost ratio of 256- vs 128-f32 rows on the card (not
+measured on the H100 yet). Reports inner/leaf split and the mean triangle
+tests per segment (arithmetic cost).
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 An independent, deliberately naive scalar implementation of the reference
 kernel's semantics (shaders/ray_tracer.wgsl) — one ray at a time, float32,
-same RNG stream. Used to validate the vectorized TPU kernels draw-for-draw on
+same RNG stream. Used to validate the vectorized kernels draw-for-draw on
 sphere scenes. Slow by construction; tests use a handful of pixels.
 """
 from __future__ import annotations

@@ -220,7 +220,7 @@ def test_texel_quad_layout_matches_pairs():
 def test_texel_taps_preserve_nan_payload_bits():
     """Texel words are bitcast u8 payloads; opaque texels with blue >= 128
     view as signaling NaNs in f32. The tap fetch must move RAW BITS — the
-    one-hot MXU path quietizes NaNs (corrupting blue bit 6), which is why
+    one-hot matmul path quietizes NaNs (corrupting blue bit 6), which is why
     texel fetches never take gatherlib's small-table fast path."""
     import numpy as np
     import jax.numpy as jnp

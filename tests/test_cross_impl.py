@@ -1,19 +1,20 @@
-"""Converged cross-implementation fidelity gate (VERDICT r2 item 6).
+"""Converged cross-implementation fidelity gate.
 
 The reference ships converged renders as its only fidelity artifact
 (renders/*.png) but those are stale interactive captures with pre-current
 sky constants (see tests/test_reference_fidelity.py), so the strongest
 fidelity instrument available here is INTERNAL cross-validation at
-convergence: the Pallas whole-path Mosaic kernel (kernels/pallas_spheres.py)
+convergence: the Pallas whole-path kernel (kernels/pallas_spheres.py)
 and the XLA persistent-lanes megakernel (kernels/megakernel.py) are two
 independent implementations of the same physics (ray_tracer.wgsl:398-471).
 Accumulating both to convergence and gating RMSE catches divergence in the
 rare stochastic branches (Russian roulette, glass TIR, specular draws) that
 per-sample tests at 1-2 frames never reach.
 
-CI runs 128 spp at 64x36 in interpret mode on CPU (the XLA megakernel on
-CPU is the time bound, ~2.6 s/frame); scripts/cross_check_onchip.py runs
-the full 128x72 @ 256 spp with REAL Mosaic compilation on the chip.
+CI runs 128 spp at 64x36 in interpret mode on CPU; chip_smoke.py runs the
+same comparison at 128x72 up to 256 spp with the kernel compiled for the
+card, gated flip-aware (deterministic silhouette flips counted apart from
+the Monte-Carlo bulk, whose fitted bias floor must stay under 1%).
 """
 import numpy as np
 import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Analytic furnace test — an oracle-independent ground truth.
 
-VERDICT r4 weak #5: the Cornell fidelity chain bottoms out at
+The Cornell fidelity chain bottoms out at
 ``tests/oracle.py``, an independent implementation but same-author; a
 genuinely third-party path tracer would retire the residual circularity,
 but none exists in this zero-egress image (no pbrt/mitsuba; torch/PIL only).

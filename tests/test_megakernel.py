@@ -55,20 +55,23 @@ def test_flat_matches_layered(dragon_scene):
 
 def test_log_pixel_encoding_is_denormal_free():
     """The completion log carries pixel ids bitcast into an f32 payload
-    column; TPUs flush DENORMAL f32s to zero inside fused copies, which
-    scrambled whole renders (the reassembly key is the id). The encoding
-    must only ever produce normal-float bit patterns, and must round-trip
-    every representable pixel id."""
+    column; a backend that flushes DENORMAL f32s to zero inside fused
+    copies would scramble whole renders (the reassembly key is the id).
+    The encoding must only ever produce normal-float bit patterns, and must
+    round-trip every representable pixel id."""
     import numpy as np
+
+    from ray_tracer_2_tpu.kernels.megakernel import (decode_log_ids,
+                                                     encode_log_ids)
 
     ids = np.concatenate([
         np.arange(0, 4096, dtype=np.int32),               # the denormal zone
         np.asarray([8_294_399, 2**23 - 1], np.int32),     # 4K and the cap
         np.random.default_rng(0).integers(0, 2**23, 65536).astype(np.int32),
     ])
-    encoded = (ids | np.int32(0x40000000)).view(np.float32)
+    encoded = np.asarray(encode_log_ids(jnp.asarray(ids)))
     exponents = (encoded.view(np.uint32) >> 23) & 0xFF
     assert (exponents != 0).all(), "denormal payload pattern"
     assert (exponents != 0xFF).all(), "inf/nan payload pattern"
-    decoded = encoded.view(np.int32) & np.int32(0x3FFFFFFF)
+    decoded = np.asarray(decode_log_ids(jnp.asarray(encoded)))
     assert (decoded == ids).all()

@@ -79,7 +79,7 @@ def test_boundary_chain_and_log_cap_bitexact(dragon_scene, kw):
 def test_striped_claim_matches_queue(dragon_scene):
     """claim="striped" must produce the identical image: per-pixel values
     derive from pixel ids, so the assignment scheme is invisible
-    (VERDICT r2 weak #6 — the knob is kept for measurement, so gate it)."""
+    (the knob is kept for measurement, so gate it)."""
     rs = dragon_scene
     W, H = 32, 18
     q, segs_q = render_persistent(rs, jnp.int32(1), width=W, height=H,
@@ -95,7 +95,7 @@ def test_striped_claim_matches_queue(dragon_scene):
 @pytest.mark.parametrize("cohorts", [2, 4])
 def test_cohorts_bitexact(dragon_scene, cohorts):
     """The lane-cohort interleaving knob (bench --cohorts; measured and
-    rejected as default, docs/PERF_NOTES.md) splits the lane batch into
+    rejected as default before the H100 port) splits the lane batch into
     independently-stepping cohorts sharing one pixel cursor and completion
     log. Pixel values derive only from pixel ids, so any cohort count must
     reproduce the single-batch image bit-for-bit."""

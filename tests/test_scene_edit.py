@@ -86,7 +86,7 @@ def test_sponza_substitute_loads(assets):
 
 def test_partial_instance_edit_preserves_rotation_and_scale():
     """Viewer round-trip (egui.rs:280-330): moving an instance must not
-    silently reset its rotation/scale (VERDICT r1 missing #4)."""
+    silently reset its rotation/scale."""
     from ray_tracer_2_tpu.math.transform import Transform, quat_rotate_y
     from ray_tracer_2_tpu.scene.camera import CameraDescriptor
     from ray_tracer_2_tpu.scene.definition import (MeshData, MeshFromData,

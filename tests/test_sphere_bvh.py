@@ -2,7 +2,7 @@
 every-sphere cross.
 
 The BVH is OFF by default (render_scene.SPHERE_BVH_MIN — measured slower
-than the dense cross at bench scales, docs/PERF_NOTES.md round-3) and NOT
+than the dense cross at bench scales before the H100 port) and NOT
 bit-equal when forced on: XLA compiles the blocked (B, 8) leaf quadratic
 and the dense (B, S) quadratic with different FMA/re-association, and
 grazing hits (disc ~ 0) amplify the ulps into occasional path re-routes.

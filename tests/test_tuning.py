@@ -1,9 +1,10 @@
 """Autotuning defaults (ray_tracer_2_tpu/tuning.py + scripts/apply_tuning.py).
 
-The on-chip runbook measures lanes/unroll candidates and persists the winner
-into tuned.json; these tests gate the loader's validation/precedence rules,
-the backend isolation (CPU never picks up chip-sized lane counts), the
-kernel-side pickup, and the sweep-log → tuned.json apply step."""
+scripts/sweep_knobs.py measures lanes/unroll candidates on the card and
+scripts/apply_tuning.py persists the winner into tuned.json; these tests
+gate the loader's validation/precedence rules, the backend isolation (CPU
+never picks up card-sized lane counts), the kernel-side pickup, and the
+sweep-log → tuned.json apply step."""
 import importlib.util
 import json
 from pathlib import Path
@@ -44,9 +45,9 @@ def test_resolve_precedence(tuned_file):
 
 
 def test_backend_isolation(tuned_file):
-    """Chip-measured values must not leak onto other backends (tests and
+    """Card-measured values must not leak onto other backends (tests and
     the virtual-device mesh run on CPU with tiny scenes)."""
-    tuned_file.write_text(json.dumps({"tpu": {"lanes": 65536}}))
+    tuned_file.write_text(json.dumps({"gpu": {"lanes": 65536}}))
     assert tuning.resolve("lanes", None, 16384) == 16384
 
 
@@ -130,16 +131,17 @@ def test_apply_writes_only_on_margin(tuned_file, tmp_path, monkeypatch,
                                      win_mrays, expect_written):
     mod = _load_apply()
     monkeypatch.setattr(mod.tuning, "TUNED_PATH", tuned_file)
-    tuned_file.write_text(json.dumps({"tpu": {"lanes": 16384, "unroll": 5}}))
+    tuned_file.write_text(json.dumps({"gpu": {"lanes": 16384, "unroll": 5}}))
     log = tmp_path / "sweep.log"
     log.write_text("\n".join(_log_lines([
         {"scene": "dragon", "env": {}, "kw": None, "mrays": 19.4},
         {"scene": "dragon", "env": {}, "kw": {"lanes": 32768},
          "mrays": win_mrays},
     ])))
-    monkeypatch.setattr("sys.argv", ["apply_tuning.py", str(log)])
+    monkeypatch.setattr("sys.argv", ["apply_tuning.py", str(log), "--scene",
+                                     "dragon", "--backend", "gpu"])
     assert mod.main() == 0
-    got = json.loads(tuned_file.read_text())["tpu"]
+    got = json.loads(tuned_file.read_text())["gpu"]
     if expect_written:
         assert got == {"lanes": 32768, "unroll": 5}  # merge keeps unroll
     else:
